@@ -6,7 +6,8 @@
 // ALSA rawmidi byte framer with running status (reference src/midi.cu:3-59),
 // and the launch scripts' real-time pacing concerns (reference
 // run_x64_86.sh, scripts/floorit). JACK/ALSA themselves are not assumed to
-// exist in a TPU serving environment; instead this provides the primitives
+// exist in a data-center serving environment; instead this provides the
+// primitives
 // a block transport needs:
 //
 //   - ta_ring_*: single-producer/single-consumer lock-free float ring

@@ -10,7 +10,7 @@
 //   jackd RT thread --process_cb--> input ring  --> StreamSession
 //   StreamSession   --> output ring --process_cb--> jackd RT thread
 //
-// libjack is dlopen'd at startup (never a link-time dependency — TPU
+// libjack is dlopen'd at startup (never a link-time dependency — GPU
 // serving hosts usually have no JACK). The library path can be overridden
 // with TPU_AUDIO_LIBJACK, which is also how tests drive the full binary
 // against a deterministic stub jackd (csrc/jackstub.cpp,

@@ -1,15 +1,9 @@
-"""On-chip equivalence drive: offline bounce vs the LIVE streaming
+"""On-device equivalence drive: offline bounce vs the LIVE streaming
 session performing the same MIDI timeline, at production scale.
 
-This is the probe that root-caused the DEFAULT-matmul-precision bug
-(CLAUDE.md landmine 9): the CPU suite runs f32 contractions either
-way, so only an on-chip drive can see precision/routing divergence.
-Measured after the fix (2026-08-19, 64v x 4s, --seconds 20-30):
-  fmajor:  static whole-vs-chunked 3.9e-6, auto bounce-vs-stream
-           4.3e-6, chunked-vs-stream 3.3e-6
-  cascade: static whole-vs-chunked 3.3e-5, auto bounce-vs-stream
-           2.3e-5
-(before the fix all four read ~3.9e-3 = one bf16 pass).
+The CPU suite runs f32 contractions at any precision setting, so only a
+drive on the device can see reduced-precision divergence (CLAUDE.md,
+landmine 4; PERF.md has the GPU readings of the bench's equiv leg).
 
 Stages (each printed):
   1. STATIC whole vs STATIC chunked        (no automation)

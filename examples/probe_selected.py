@@ -1,14 +1,12 @@
-"""Staged probe for the cascade 'selected' strategy on the real chip.
+"""Staged probe for the cascade 'selected' strategy on the GPU.
 
-The 152-IR selected bench wedged after layout pinning; this isolates the
-stages (bank upload, zero state init, sel gathers, first steady dispatch,
-steady timing) with explicit readbacks and flushes so the wedge point is
-visible. Run with a generous outer timeout; each stage prints BEFORE it
-starts.
+Isolates the stages (bank upload, zero state init, sel gathers, first
+steady dispatch, steady timing) with explicit readbacks and flushes so a
+stall point is visible. Each stage prints BEFORE it starts.
 
 Usage:
   python examples/probe_selected.py --voices 64 --num-irs 152 \
-      --cache-dir .bench_cache [--no-pin] [--gather onehot]
+      --cache-dir .bench_cache
 """
 from __future__ import annotations
 
@@ -27,12 +25,10 @@ def main() -> int:
     ap.add_argument("--blocks", type=int, default=50)
     ap.add_argument("--reps", type=int, default=2)
     ap.add_argument("--cache-dir", default=".bench_cache")
-    ap.add_argument("--no-pin", action="store_true",
-                    help="plain jit instead of pinned AUTO layouts")
     ap.add_argument("--skip-fade", action="store_true")
     ap.add_argument("--stage-breakdown", action="store_true",
                     help="additionally time head-only / tail-only steady "
-                         "variants in THIS process (weather-immune)")
+                         "variants in THIS process")
     args = ap.parse_args()
 
     t0 = time.time()
@@ -49,7 +45,6 @@ def main() -> int:
     from tpu_audio.engine import ControlPlane
     from tpu_audio.engine.cascade import CascadeConvolution
     from tpu_audio.models.reverb import _fit_cascade_ratio
-    from tpu_audio.utils.layouts import backend_supports_layouts
 
     stage("bank build + pack")
     bank = bench.make_bank(args.num_irs, args.ir_seconds, 44100)
@@ -91,26 +86,9 @@ def main() -> int:
     state = replace(state, coef_c=jnp.asarray(
         np.asarray(control.wet, np.float32)), sel_head=gh, sel_tail=gt)
 
-    pinned_fmt = None
-    if not args.no_pin and backend_supports_layouts():
-        from tpu_audio.utils.layouts import pin_engine_steps, place_in_formats
-
-        stage("pin steady/full/collapse (AUTO layouts)")
-        pinned = pin_engine_steps(engine, spectra, params,
-                                  jax.eval_shape(lambda: state), pool[0])
-        steady, fade, collapse = (pinned["steady"], pinned["full"],
-                                  pinned["collapse"])
-        stage("bank relayout to pinned format")
-        spectra = place_in_formats(spectra, pinned["bank_format"], "bank")
-        np.asarray(spectra.head_rhs2[0, 0, 0, :2])
-        stage("state relayout to pinned format")
-        state = place_in_formats(state, pinned["state_format"], "state")
-        np.asarray(state.coef_a[:1, 0])
-        pinned_fmt = pinned["state_format"]
-    else:
-        steady = jax.jit(engine.step_coef_steady, donate_argnums=(0,))
-        fade = jax.jit(engine.step_coef, donate_argnums=(0,))
-        collapse = jax.jit(engine.collapse)
+    steady = jax.jit(engine.step_coef_steady, donate_argnums=(0,))
+    fade = jax.jit(engine.step_coef, donate_argnums=(0,))
+    collapse = jax.jit(engine.collapse)
 
     stage("first steady dispatch")
     state, out = steady(state, spectra, params, pool[0])
@@ -123,7 +101,7 @@ def main() -> int:
     dl = args.block / 44100 * 1e3
     result = {"voices": args.voices, "num_irs": args.num_irs,
               "strategy": "selected", "steady_ms": round(ms, 3),
-              "rtf": round(dl / ms, 3), "pinned": pinned_fmt is not None}
+              "rtf": round(dl / ms, 3)}
     stage(f"steady {ms:.3f} ms/block (RTF {result['rtf']})")
 
     if not args.skip_fade:

@@ -1,6 +1,6 @@
 """Run the five BASELINE.json benchmark configs end-to-end.
 
-    python examples/run_baseline_configs.py [--device cpu|tpu] [--quick]
+    python examples/run_baseline_configs.py [--device cpu|gpu] [--quick]
 
 Each config streams real audio through the production engine and validates
 output (finite, non-silent, and — where cheap — against offline
@@ -63,7 +63,7 @@ def _run(model, blocks, midi=None, signal="noise", seed=1):
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--device", default="cpu", choices=["cpu", "tpu"])
+    ap.add_argument("--device", default="cpu", choices=["cpu", "gpu"])
     ap.add_argument("--quick", action="store_true")
     args = ap.parse_args(argv)
 

@@ -226,7 +226,7 @@ def test_app_cleans_rings_on_setup_failure(tmp_path, settings_env):
     if not native.native_available():
         _pytest.skip("native toolchain unavailable")
     sfile, root = settings_env
-    name = f"/tpua_cleanup_{os.getpid()}"
+    name = f"/rvb_cleanup_{os.getpid()}"
     with _pytest.raises(ValueError):
         main(["--settings", str(sfile), "--root", str(root),
               "--input-ring", name, "--blocks", "2", "--block-size", "32",

@@ -1,12 +1,13 @@
 """Best-known-evidence store merge (bench._merge_store): newest wins only
-when PLAUSIBLE. Round 3's store was corrupted by one globally-congested
-run (ws steady 37.056 ms overwrote the healthy 1.144 measured twenty
-minutes earlier) because the merge was newest-wins; the policy under test
+when PLAUSIBLE. A newest-wins merge lets one globally slowed run
+overwrite a healthy reading; the policy under test
 keeps implausible readings out of the store (tagged suspect_congestion
 with the rejected reading) while accepting a twice-confirmed regression
 (tagged regressed_from) so the store can never lie forever."""
 
 import sys
+
+import pytest
 
 
 def _bench():
@@ -104,7 +105,7 @@ def test_suspect_headline_then_confirmed_regression():
 def test_skipped_leg_backfilled_with_provenance():
     bench = _bench()
     prior = mk(legs={"sel152": {"steady_ms": 2.05, "rtf": 2.83}}, at="T1")
-    new = mk(legs={"sel152": {"skipped": "congested tunnel"}})
+    new = mk(legs={"sel152": {"skipped": "slow host link"}})
     row = bench._merge_store(new, prior)["legs"]["sel152"]
     assert row["steady_ms"] == 2.05
     assert row["stale_from"] == "T1"
@@ -143,12 +144,10 @@ def test_flag_suspects_annotates_printed_record_only():
 
 
 def test_covariate_blocks_confirmation_when_run_is_globally_congested():
-    """Cross-leg weather covariate (round-5): a SECOND bad reading for a
-    leg is only accepted as a real regression when the OTHER comparable
-    legs of the same run are within their plausibility bands. mono_ref
-    read 1.082 vs 0.414 across two congested runs in round 4 and the
-    plain two-strike rule shipped regressed_from; a clean re-measure
-    later read 0.401 — the regression was weather."""
+    """Cross-leg covariate: a SECOND bad reading for a leg is only
+    accepted as a real regression when the OTHER comparable legs of the
+    same run are within their plausibility bands — otherwise two globally
+    slowed runs would make the plain two-strike rule confirm an artifact."""
     bench = _bench()
     prior = mk(legs={
         "mono_ref": {"steady_ms": 0.414,
@@ -203,3 +202,28 @@ def test_covariate_gates_headline_confirmation_too():
     store = bench._merge_store(new, prior)
     assert store["value"] == 4.5          # kept prior, not confirmed
     assert store["suspect_congestion"]["value"] == 1.1
+
+
+@pytest.mark.parametrize("layout", ["no_dirs", "empty_dirs", "auto_repo_dir"])
+def test_last_good_lookup_tolerates_missing_records(tmp_path, layout):
+    """The TPU-era records are gone from the tree: a partial record must
+    still print, with no last_good attached, when neither store holds one."""
+    import os
+
+    bench = _bench()
+    old = bench._LAST_GOOD_DIR, bench._REPO_RECORD_DIR
+    try:
+        cache, repo = tmp_path / "cache", tmp_path / "bench_records"
+        if layout == "empty_dirs":
+            cache.mkdir()
+            repo.mkdir()
+        bench._LAST_GOOD_DIR = str(cache)
+        bench._REPO_RECORD_DIR = (
+            os.path.join(os.path.dirname(os.path.abspath(bench.__file__)),
+                         "bench_records")
+            if layout == "auto_repo_dir" else str(repo))
+        if layout == "auto_repo_dir":
+            bench._LAST_GOOD_DIR = None
+        assert bench._load_last_good("rtf_64voices_4sIR_44k256") is None
+    finally:
+        bench._LAST_GOOD_DIR, bench._REPO_RECORD_DIR = old

@@ -1,7 +1,7 @@
 """On-device IR preparation (engine/device_prep.py) must produce the
 same banks as the host numpy prep path to the device FFT backend's
 tolerance — the reference computes IR spectra on the GPU
-(src/conv.cu:207-253) and this is the TPU equivalent."""
+(src/conv.cu:207-253) and this is the same architecture in JAX."""
 
 import numpy as np
 import pytest

@@ -78,7 +78,7 @@ def test_two_process_ring_stream(tmp_path):
     process, in real time, with deadline accounting reported at exit."""
     _write_assets(tmp_path)
     uid = f"{os.getpid()}_{int(time.time() * 1e3) % 100000}"
-    name_in, name_out = f"/tpua_in_{uid}", f"/tpua_out_{uid}"
+    name_in, name_out = f"/rvb_in_{uid}", f"/rvb_out_{uid}"
     n_blocks, block, v = 30, 128, 1
     floats = v * 2 * block
 

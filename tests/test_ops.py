@@ -71,16 +71,14 @@ def test_matmul_backend_matches_fft_backend(n):
 
 @pytest.mark.parametrize("n", [4096, 8192, 32768])
 def test_split_backend_matches_numpy(n):
-    """Four-step MXU FFT (the mid/large-size backend; XLA's TPU FFT
-    lowering stalls for minutes at first execution on this stack)."""
-    from tpu_audio.ops.fft import _split_factors
+    """Four-step FFT as two matmul stages (n = n1 * n2)."""
+    from tpu_audio.ops.fft import _split_factors, auto_backend
     n1, n2 = _split_factors(n)
     assert n1 * n2 == n and n1 <= n2 <= 2 * n1
     x = RNG.standard_normal((2, 3, n)).astype(np.float32)
     sp = SpectralTransform(n, backend="split")
-    # auto: matmul up to MATMUL_MAX_N, split beyond
-    assert SpectralTransform(n).backend == (
-        "matmul" if n <= 4096 else "split")
+    # auto: the per-size table measured on the GPU
+    assert SpectralTransform(n).backend == auto_backend(n)
     got = np.asarray(jax.jit(sp.rfft)(jnp.asarray(x)))
     want = np.fft.rfft(x, axis=-1)
     scale = np.abs(want).max()
@@ -91,6 +89,66 @@ def test_split_backend_matches_numpy(n):
     np.testing.assert_allclose(gotr, wantr, atol=1e-5)
     rt = np.asarray(jax.jit(lambda y: sp.irfft(sp.rfft(y)))(jnp.asarray(x)))
     np.testing.assert_allclose(rt, x, atol=1e-5)
+
+
+@pytest.mark.parametrize("n", [512, 8192])
+@pytest.mark.parametrize("backend", ["fft", "matmul", "split"])
+@pytest.mark.parametrize("direction", ["forward", "inverse"])
+def test_backends_match_float64_at_the_engine_sizes(n, backend, direction):
+    """Every backend against float64 numpy at the sizes the engines use
+    (512: fmajor and the cascade head; 8192: the cascade tail)."""
+    from tpu_audio.ops import fft as fftmod
+
+    xf = SpectralTransform(n, backend=backend)
+    x = RNG.standard_normal((3, n))
+    spec = np.fft.rfft(x, axis=-1)
+    try:
+        if direction == "forward":
+            got = np.asarray(jax.jit(xf.rfft)(jnp.asarray(x, jnp.float32)))
+            scale = np.abs(spec).max()
+            np.testing.assert_allclose(got / scale, spec / scale, atol=3e-6)
+        else:
+            got = np.asarray(jax.jit(xf.irfft)(
+                jnp.asarray(spec.astype(np.complex64))))
+            np.testing.assert_allclose(got, x, atol=3e-5)
+    finally:
+        # the matmul backend's [n, n/2+1] tables are 134 MB each at 8192
+        fftmod._twiddles_fwd.cache_clear()
+        fftmod._twiddles_inv.cache_clear()
+
+
+@pytest.mark.parametrize("backend", ["fft", "split"])
+def test_backends_at_the_monolithic_size(backend):
+    """n = 131072, the monolithic reference engine's transform: forward
+    against float64 numpy and the round trip."""
+    n = 131072
+    xf = SpectralTransform(n, backend=backend)
+    x = RNG.standard_normal((2, n)).astype(np.float32)
+    got = np.asarray(jax.jit(xf.rfft)(jnp.asarray(x)))
+    want = np.fft.rfft(x.astype(np.float64), axis=-1)
+    scale = np.abs(want).max()
+    np.testing.assert_allclose(got / scale, want / scale, atol=3e-6)
+    rt = np.asarray(jax.jit(lambda y: xf.irfft(xf.rfft(y)))(jnp.asarray(x)))
+    np.testing.assert_allclose(rt, x, atol=3e-5)
+
+
+@pytest.mark.parametrize("n", [512, 8192, 131072, 1024])
+def test_auto_resolves_through_the_measured_table(n):
+    """backend='auto' takes AUTO_BACKENDS' entry for a measured size and
+    the plain FFT for any other size."""
+    from tpu_audio.ops.fft import AUTO_BACKENDS, auto_backend
+
+    want = AUTO_BACKENDS.get(n, "fft")
+    assert auto_backend(n) == want
+    assert SpectralTransform(n).backend == want
+    assert SpectralTransform(n, backend="auto").backend == want
+
+
+def test_auto_table_covers_the_engine_sizes_with_known_backends():
+    from tpu_audio.ops.fft import AUTO_BACKENDS
+
+    assert {512, 8192, 131072} <= set(AUTO_BACKENDS)
+    assert set(AUTO_BACKENDS.values()) <= {"fft", "matmul", "split"}
 
 
 def test_roundtrip_convolution_equivalence():

@@ -291,7 +291,8 @@ def test_fmajor_roll_part_sharded_matches_single_device(voice, part):
     """The PRODUCTION engine's sequence (IR-partition) scaling: roll-mode
     fmajor sharded over ('voice','part') must equal the unsharded engine
     through collapse + crossfade + steady, with the delay-line roll's
-    shard-boundary column riding ICI (inserted by XLA from the shardings)."""
+    shard-boundary column crossing devices (inserted by XLA from the
+    shardings)."""
     from tpu_audio.engine.fmajor import FMajorPartitionedConvolution
     from tpu_audio.parallel.mesh import fmajor_shardings, shard_fmajor_step
 

@@ -161,16 +161,16 @@ def test_transfer_complex_with_explicit_sharding():
 
 def test_every_contraction_pins_explicit_precision():
     """Source audit: every contraction call in the package passes an
-    explicit ``precision=``. TPU DEFAULT precision is a single bf16 pass
-    (~2^-8 relative per product) with shape-dependent MXU-vs-VPU routing
-    — an unannotated contraction makes the f32 engine disagree with
-    itself across voice counts (measured 3.9e-3 offline-bounce-vs-stream
-    divergence on-chip before CLAUDE.md landmine 9). The CPU suite
-    cannot catch this numerically (CPU DEFAULT is f32), so enforce it at
-    the AST level: einsum/matmul/tensordot/dot/vdot/inner/dot_general
-    calls need the keyword, and the ``@`` operator (which cannot carry
-    one) is banned outright. Pure-permutation einsums (a single operand,
-    no products) are exempt."""
+    explicit ``precision=``. On the GPU an f32 contraction at DEFAULT
+    precision may run in TF32 (10-bit mantissa) and follows a global
+    config flag, so an unannotated contraction would round the signal it
+    carries and make the f32 engine disagree with itself between the
+    streamed and the bounced path. The CPU suite cannot catch this
+    numerically (CPU DEFAULT is f32), so enforce it at the AST level:
+    einsum/matmul/tensordot/dot/vdot/inner/dot_general calls need the
+    keyword, and the ``@`` operator (which cannot carry one) is banned
+    outright. Pure-permutation einsums (a single operand, no products)
+    are exempt."""
     import ast
     import pathlib
 
@@ -197,5 +197,5 @@ def test_every_contraction_pins_explicit_precision():
             if not any(kw.arg == "precision" for kw in node.keywords):
                 offenders.append(f"{rel}:{node.lineno} ({node.func.attr})")
     assert not offenders, (
-        "contractions without an explicit precision= (TPU DEFAULT is a "
-        f"single bf16 pass — see CLAUDE.md landmine 9): {offenders}")
+        "contractions without an explicit precision= (DEFAULT may be "
+        f"TF32 on the GPU — see CLAUDE.md): {offenders}")

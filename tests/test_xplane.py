@@ -45,7 +45,7 @@ def encode_space():
         field(4, 2, field(1, 0, 7) + field(2, 0, 50) + field(3, 0, d))
         for d in (1_000_000_000, 2_000_000_000, 3_000_000_000))
     line = field(2, 2, b"XLA Modules") + events
-    plane = (field(2, 2, b"/device:TPU:0") + field(3, 2, line)
+    plane = (field(2, 2, b"/device:GPU:0") + field(3, 2, line)
              + field(4, 2, entry))
     # plus a host plane that must be excluded by name
     hline = field(4, 2, field(1, 0, 7) + field(3, 0, 9_000_000_000))
@@ -58,8 +58,8 @@ def test_parse_hand_encoded_space(tmp_path):
     p = tmp_path / "t.xplane.pb"
     p.write_bytes(encode_space())
     planes = xplane.plane_events(str(p))
-    assert set(planes) == {"/device:TPU:0", "/host:CPU"}
-    durs = planes["/device:TPU:0"]["jit_step"]
+    assert set(planes) == {"/device:GPU:0", "/host:CPU"}
+    durs = planes["/device:GPU:0"]["jit_step"]
     assert durs == [1_000_000_000, 2_000_000_000, 3_000_000_000]
     ms = xplane.device_step_durations_ms(str(tmp_path), "jit_step")
     assert ms == {"jit_step": [1.0, 2.0, 3.0]}   # host plane excluded
@@ -69,10 +69,10 @@ def test_unknown_fields_and_fixed_width_skipped(tmp_path):
     """Extra fields of every wire type must be skipped structurally."""
     extra = (field(9, 0, 12345) + field(10, 5, 7) + field(11, 1, 8)
              + field(12, 2, b"opaque"))
-    plane = field(2, 2, b"/device:TPU:0") + extra
+    plane = field(2, 2, b"/device:GPU:0") + extra
     p = tmp_path / "t.xplane.pb"
     p.write_bytes(field(1, 2, plane) + extra)
-    assert "/device:TPU:0" in xplane.plane_events(str(p))
+    assert "/device:GPU:0" in xplane.plane_events(str(p))
 
 
 def test_truncated_and_garbage_raise_cleanly(tmp_path):

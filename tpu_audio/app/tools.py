@@ -9,8 +9,8 @@ scripts/makeindex.sh, and the operational gaps SURVEY.md §5 lists):
     python -m tpu_audio.app.tools bank-info <index>
     python -m tpu_audio.app.tools profile <trace-dir-or-xplane.pb>
 
-(The reference's clock-governor scripts floorit/jfloorit have no TPU
-equivalent — chip clocks are platform-managed.)
+(The reference's clock-governor scripts floorit/jfloorit have no
+equivalent here — device clocks are managed by the platform.)
 """
 
 from __future__ import annotations

@@ -2,7 +2,7 @@
 
 Capability equivalent of the reference's `_irBuffers` spectra map filled by
 ``Convolution::prepare`` (reference src/conv.cu:207-253, wired from index
-files at src/main.cu:72-81), redesigned for TPU:
+files at src/main.cu:72-81), redesigned for batched device execution:
 
   - spectra are precomputed ONCE per bank into a single dense HBM array
     ([K, 2, P, F] partition spectra or [K, 2, Fm] monolithic half-spectra)

@@ -5,12 +5,12 @@ as a pure jitted state-threading function — one full-size spectrum per IR,
 one forward + inverse transform per block, spectral slew crossfade, predelay
 + residual overlap-add with clamping, 2x2 wet/dry mix. It exists for
 
-  1. golden parity: it is the executable specification the partitioned TPU
+  1. golden parity: it is the executable specification the partitioned
      engine is equivalence-tested against (same slew trajectory, same mix
      math), and
   2. small-IR configs where a single FFT is perfectly fine.
 
-TPU-native deviations from the reference (documented, deliberate):
+Deviations from the reference (documented, deliberate):
   - batched rfft per channel instead of the 2-channels-in-1-complex-FFT
     packing trick (half the spectrum, no unpack pass; the packing ops live
     in tpu_audio.ops.hermitian for parity tests);
@@ -36,6 +36,11 @@ from tpu_audio.engine.params import VoiceParams
 from tpu_audio.ops.fft import SpectralTransform
 from tpu_audio.ops.mix import delay_and_clamp_add, pan_gains
 from tpu_audio.ops.smoother import slew_spectra
+
+# precision of the complex wet MAC and the dry 2x2 mix: this engine is the
+# reference oracle, so exact f32. HIGH read the same golden error on the
+# GPU (3.3e-8) and no lower cost (PERF.md)
+MAC_PRECISION = jax.lax.Precision.HIGHEST
 
 
 @jax.tree_util.register_dataclass
@@ -79,8 +84,8 @@ class MonolithicConvolution:
 
     # -- state ------------------------------------------------------------------
 
-    # jitted so complex buffers are device-generated (some TPU transports
-    # cannot transfer eagerly-created complex constants; see utils.transfer)
+    # jitted so complex buffers are device-generated (some backends cannot
+    # transfer eagerly-created complex constants; see utils.transfer)
     def init_state(self) -> MonolithicState:
         from tpu_audio.utils.jitcache import instance_cached
 
@@ -134,11 +139,9 @@ class MonolithicConvolution:
         # with pan*level scales (conv.cu:386-401); 1/N folds into irfft
         gl, gr = pan_gains(params.pan_wet)            # [V, 2]
         scale = jnp.stack([gl, gr], axis=-1) * params.level[..., None]  # [V,2,2]
-        # explicit HIGH precision (TPU DEFAULT = one bf16 pass, ~2^-8;
-        # see engine/cascade.py's note)
         spec_out = jnp.einsum("vif,viof,vio->vof", spec_in, active,
                               scale.astype(jnp.complex64),
-                              precision=jax.lax.Precision.HIGH)
+                              precision=MAC_PRECISION)
         wet = self.xf.irfft(spec_out)  # [V, 2, N]
 
         # predelay + residual + clamp (f_pointwiseAdd, conv.cu:89-100,411-415;
@@ -152,7 +155,7 @@ class MonolithicConvolution:
         dry_gain = (jnp.stack([dgl, dgr], axis=-1)
                     * (params.dry * params.level)[..., None])  # [V, 2, 2]
         dry = jnp.einsum("vib,vio->vob", x, dry_gain,
-                         precision=jax.lax.Precision.HIGH)
+                         precision=MAC_PRECISION)
         out = out_ext[..., :b] + dry
 
         residual = jnp.concatenate(

@@ -1,9 +1,9 @@
-"""The TPU-native core: uniform partitioned overlap-save convolution.
+"""The core algorithm: uniform partitioned overlap-save convolution.
 
 Replaces the reference's per-block monolithic FFT (1 fwd + 2 inv transforms
 of fftSize=131072 per 256-frame block, reference src/conv.cu:367-408) with
 uniform partitioned overlap-save: the IR lives as P block-sized partition
-spectra in HBM, each block pays two small-N (N = 2B) transforms and a
+spectra in device memory, each block pays two small-N (N = 2B) transforms and a
 frequency-domain multiply-accumulate over the partition axis. IR length is
 unbounded (grow P), which is what makes >4 s IRs possible at 256-frame
 latency — the reference caps IRs at fftSize-1024 ≈ 2.95 s.
@@ -16,7 +16,7 @@ the monolithic reference engine:
     reference's f_interpolate (src/conv.cu:15-32), which the reference
     itself flags as "one of the most time consuming parts" (conv.cu:337).
 
-  - ``coef`` (default, the TPU-first design): because the slew step is the
+  - ``coef`` (default, the batched design): because the slew step is the
     SAME scalar for every bin, the active spectrum is always an affine
     combination  active = a·base + c·bank[select]  of a frozen snapshot
     `base` and the currently selected bank entry. The per-block slew
@@ -69,6 +69,11 @@ from tpu_audio.engine.params import VoiceParams
 from tpu_audio.ops.fft import SpectralTransform
 from tpu_audio.ops.mix import add_dry, pan_gains, wet_scale
 from tpu_audio.ops.smoother import slew_spectra
+
+# precision of the complex MAC and coefficient contractions: this engine is
+# the executable semantics reference, so exact f32 (HIGH read the same
+# golden error on the GPU, 2.4e-8; PERF.md)
+MAC_PRECISION = jax.lax.Precision.HIGHEST
 
 
 @jax.tree_util.register_dataclass
@@ -123,8 +128,8 @@ class PartitionedConvolution:
     #
     # State constructors are jitted: complex buffers must be DEVICE-generated
     # — eagerly-created complex constants require a complex host->device
-    # transfer, which some TPU transports lack entirely (and a failed
-    # transfer can wedge the session; see tpu_audio.utils.transfer).
+    # transfer, which some backends lack entirely (see
+    # tpu_audio.utils.transfer).
 
     def _zeros(self, with_active: bool, with_base: bool) -> PartitionedState:
         v, b, p, f = self.num_voices, self.block, self.partitions, self.num_bins
@@ -231,11 +236,8 @@ class PartitionedConvolution:
             state.active, target,
             params.wet[..., None, None, None], params.vsteps[..., None, None, None])
         scale = self._wet_scale(params).astype(jnp.complex64)
-        # explicit HIGH precision on every value-carrying contraction:
-        # TPU DEFAULT is one bf16 pass (~2^-8 relative) with shape-
-        # dependent MXU routing (see engine/cascade.py's note)
         spec_out = jnp.einsum("vipf,viopf,vio->vof", fdl, active, scale,
-                              precision=jax.lax.Precision.HIGH)
+                              precision=MAC_PRECISION)
         return self._finish(state, params, x, spec_out, fdl=fdl, active=active)
 
     def step_coef(self, state, bank, params, x,
@@ -248,7 +250,7 @@ class PartitionedConvolution:
         scale = self._wet_scale(params)                          # [V, 2, 2]
 
         target = jnp.take(bank, params.select, axis=0)           # [V,2,2,P,F]
-        hi = jax.lax.Precision.HIGH
+        hi = MAC_PRECISION
         mac_sel = jnp.einsum("vipf,viopf->viof", fdl, target, precision=hi)
         spec_out = jnp.einsum("viof,vio->vof", mac_sel,
                               (c[..., None] * scale).astype(jnp.complex64),

@@ -26,6 +26,12 @@ from __future__ import annotations
 import jax
 import jax.numpy as jnp
 
+# the dry 2x2 mix carries the program material itself. HIGH read
+# bit-identical output on the GPU (the mix is not a TF32 GEMM at the
+# measured shapes); HIGHEST keeps it exact at any shape, at no measured
+# cost (PERF.md)
+DRY_PRECISION = jax.lax.Precision.HIGHEST
+
 
 def pan_gains(pan: jnp.ndarray) -> tuple[jnp.ndarray, jnp.ndarray]:
     """Constant-sum pan law over pan in [-1, 1] (reference src/conv.cu:386-389)."""
@@ -87,7 +93,5 @@ def add_dry(out, x, params) -> "jnp.ndarray":
     gl, gr = pan_gains(params.pan_dry)
     dry_gain = (jnp.stack([gl, gr], axis=-1)
                 * (params.dry * params.level)[..., None])
-    # HIGH precision: TPU DEFAULT would round each product to bf16
-    # (~2^-8), audible on the dry program material
     return out + jnp.einsum("vib,vio->vob", x, dry_gain,
-                            precision=jax.lax.Precision.HIGH)
+                            precision=DRY_PRECISION)

@@ -2,7 +2,7 @@
 
 The reference convolves against one monolithic fftSize-point IR spectrum,
 which caps the IR at fftSize - 1024 frames and costs an O(fftSize log fftSize)
-FFT per 256-frame block (reference src/conv.cu:207-253,367). The TPU-native
+FFT per 256-frame block (reference src/conv.cu:207-253,367). This
 engine instead uses **uniform partitioned overlap-save**: the IR is split
 into P = ceil(L / B) block-sized partitions, each zero-padded to N = 2B and
 transformed once at load time; per block the engine pays two small-N
@@ -49,7 +49,7 @@ def partition_spectra(ir: np.ndarray, block: int,
 
     Load-time preprocessing runs host-side in numpy: it is one FFT pass per
     bank load, and device round-trips would require complex host<->device
-    transfers some TPU transports lack (see tpu_audio.utils.transfer).
+    transfers some backends lack (see tpu_audio.utils.transfer).
     """
     parts = partition_ir(ir, block, max_partitions)
     if backend == "numpy":

@@ -1,13 +1,13 @@
-"""Multi-chip scaling: device mesh + shardings for the voice server.
+"""Multi-device scaling: device mesh + shardings for the voice server.
 
 The reference is strictly single-GPU (SURVEY.md §2: no NCCL/MPI/collectives
 anywhere); its only scaling axes are CUDA streams and multiple engine
-instances on one device. The TPU-native framework scales over an ICI mesh
-with two axes:
+instances on one device. This framework scales over a device mesh (GPUs
+joined by NVLink, or virtual CPU devices in tests) with two axes:
 
   - ``voice``: data parallelism over concurrent reverb voices. Voices are
     independent, so the hot loop is communication-free along this axis —
-    it rides pure ICI bandwidth only for input/output distribution.
+    the interconnect carries only input/output distribution.
   - ``part``: sequence parallelism over the IR partition axis (the moral
     equivalent of blockwise/ring attention over sequence length,
     SURVEY.md §5): the frequency-domain delay line, the IR bank, and the
@@ -18,9 +18,9 @@ with two axes:
 
 Implementation: GSPMD via jit + NamedSharding — annotate every state leaf,
 the bank, params, and I/O blocks with PartitionSpecs and let XLA place
-collectives. A single chip is the degenerate 1x1 mesh with zero overhead,
-so the same step function serves laptop CPU tests, one v5e chip, and a pod
-slice (SURVEY.md §5 comms-layer requirement).
+collectives. A single device is the degenerate 1x1 mesh with zero
+overhead, so the same step function serves laptop CPU tests, one GPU, and a
+multi-GPU host (SURVEY.md §5 comms-layer requirement).
 """
 
 from __future__ import annotations
@@ -155,8 +155,8 @@ def place_state(state: PartitionedState, mesh: Mesh,
 
     Routed through the planar-transfer helper because PartitionedState
     carries complex64 leaves: a HOST-resident state (checkpoint gathers,
-    hand-built fixtures) put raw would hit the transport's UNIMPLEMENTED
-    complex path and poison the TPU session (utils/transfer.py).
+    hand-built fixtures) put raw would need a complex host->device
+    transfer, which some backends lack (utils/transfer.py).
     Device-resident leaves pass through device_put untouched."""
     from tpu_audio.utils.transfer import tree_device_put_maybe_complex
     return tree_device_put_maybe_complex(
@@ -182,9 +182,9 @@ def fmajor_shardings(mesh: Mesh, engine):
     psum over 'part' plus the one-slot boundary shift of the delay-line
     roll (a collective permute) automatically from these shardings. RING
     mode's doubled-rhs dynamic window would straddle partition shards, so
-    ring engines are voice-DP only: single-chip production uses ring (no
-    roll traffic at all); multi-chip sequence scaling uses roll, where the
-    roll's shard-boundary column IS the ICI exchange.
+    ring engines are voice-DP only: single-device production uses ring (no
+    roll traffic at all); multi-device sequence scaling uses roll, where
+    the roll's shard-boundary column IS the inter-device exchange.
     """
     from tpu_audio.engine.fmajor import FMajorBank, FMajorState
 
@@ -335,7 +335,7 @@ def _cascade_local_engine(engine, mesh: Mesh):
     import jax.numpy as jnp
 
     # propagate EVERY behavior knob: predelay_side changes semantics at
-    # predelay edits, and tail_mac changes bf16 rounding (the MXU form
+    # predelay edits, and tail_mac changes bf16 rounding (the dot form
     # takes exact products) — either mismatch breaks the sharded ==
     # unsharded exactness the tests assert
     local = CascadeConvolution(

@@ -1,8 +1,8 @@
 """Live MIDI byte transports.
 
 The reference reads raw MIDI bytes from an ALSA device on a dedicated
-thread (reference src/midi.cu:22-59). A TPU serving host usually has no
-ALSA; control bytes arrive over a FIFO, socket, or file instead. These
+thread (reference src/midi.cu:22-59). A data-center serving host usually
+has no ALSA; control bytes arrive over a FIFO, socket, or file instead. These
 transports poll a byte stream non-blockingly between audio blocks and push
 framed messages into the ControlPlane — same role, same cadence (the
 reference's thread also just interleaves with the audio callback).

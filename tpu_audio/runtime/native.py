@@ -33,7 +33,7 @@ from tpu_audio.utils.log import Log
 
 _CSRC = os.path.join(os.path.dirname(os.path.dirname(
     os.path.dirname(os.path.abspath(__file__)))), "csrc")
-_LIB_PATH = os.path.join(_CSRC, "libtpuaudio.so")
+_LIB_PATH = os.path.join(_CSRC, "libblockio.so")
 _STAMP_PATH = _LIB_PATH + ".src.sha256"
 _lib = None
 _lib_lock = threading.Lock()

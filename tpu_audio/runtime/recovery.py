@@ -2,9 +2,9 @@
 
 The reference's only failure policy is assert() -> process abort (SURVEY.md
 §5; reference src/jackclient.cu:13-18 registers a shutdown hook that does
-nothing). On this framework's target transport the risk is real and
-operational: one failed transfer can poison the process's TPU session
-permanently (utils/transfer.py), and a tunneled chip can drop mid-stream.
+nothing). For a long-running server the risk is real and operational: a
+failed transfer or a lost device can leave the process's device session
+unusable, and a remote device can drop mid-stream.
 Errors surface at READBACK, not dispatch — block_until_ready can lie — so
 the recovery unit is the streaming loop itself: any exception escaping
 StreamSession.run is treated as a dead device session.

@@ -2,7 +2,7 @@
 
 Capability equivalent of the reference's JACK process-callback runtime
 (reference src/jackclient.cu:4-11 + src/conv.cu:287-466 + src/main.cu:82-95),
-restructured for TPU dispatch:
+restructured for asynchronous device dispatch:
 
   - the whole block pipeline is ONE jitted function with static shapes and
     DONATED state buffers (no per-block allocation, no recompiles);
@@ -134,14 +134,14 @@ class StreamSession:
         self.realtime = realtime
         # realtime pacing source: "sleep" = perf_counter + time.sleep;
         # "native" = the C++ absolute-deadline clock (clock_nanosleep,
-        # drift-free, re-anchors after late blocks — the TPU equivalent of
+        # drift-free, re-anchors after late blocks — the equivalent of
         # the reference riding the JACK server's period clock)
         if clock not in ("sleep", "native"):
             raise ValueError(f"unknown clock {clock!r}")
         self.clock = clock
         # how many blocks may be in flight between dispatch and sink
         # delivery: 1 = minimum latency (local hardware); raise it on
-        # high-latency host links (e.g. tunneled chips) to hide transfer RTT
+        # high-latency host links to hide transfer RTT
         self.pipeline_depth = max(1, pipeline_depth)
         # "stop": end the stream when the source runs dry (file processing);
         # "silence": substitute silent blocks and keep real time (live rings
@@ -159,8 +159,8 @@ class StreamSession:
         # chunk) — throughput mode for offline processing / high-RTT links;
         # MIDI and parameter changes then apply at chunk granularity
         self.chunk_blocks = max(1, chunk_blocks)
-        # fetch_batch > 1: keep PER-BLOCK dispatch (on-chip the scan-based
-        # chunk mode is ~4x slower — carries are copied, not aliased) but
+        # fetch_batch > 1: keep PER-BLOCK dispatch (the scan-based chunk
+        # mode copies its carries instead of aliasing them) but
         # batch the device->host output fetches: every N outputs are
         # stacked in one dispatch and transferred together, amortising the
         # per-request round trip on high-RTT links. Adds N blocks of
@@ -200,15 +200,14 @@ class StreamSession:
                                 deadline_s=self.block_period)
         self.on_missed_deadline = on_missed_deadline
         self._missed_logged = 0
-        # fired once per run(), AFTER layout pinning / mesh bank placement
-        # and before the first block — the seam for warm-up work that must
-        # see the serving-final bank layouts (e.g. the working set
-        # pre-compiling its fault path, models/reverb.py:session)
+        # fired once per run(), AFTER mesh bank placement and before the
+        # first block — the seam for warm-up work that must see the
+        # serving-final bank placement (e.g. the working set pre-compiling
+        # its fault path, models/reverb.py:session)
         self.pre_run_hooks: list = []
 
         donate_args = (0,) if donate else ()
         self._donate = donate
-        self._layouts_pinned = False
         self._is_coef = (getattr(engine, "variant", None) == "coef"
                          and hasattr(engine, "step_coef"))
         if mesh is not None:
@@ -347,9 +346,8 @@ class StreamSession:
             self._place_state = lambda st: jax.device_put(st, state_sh)
             self._place_bank = lambda b: pm.place_bank(b, mesh)
         # bank placement is deferred to run() start so bank-owning
-        # subsystems (the working set's on_bank_pinned adoption) — wired
-        # by the model AFTER this constructor — see the placed bank and
-        # key their slot-update executables by its mesh formats
+        # subsystems (the working set's on_bank_placed adoption) — wired
+        # by the model AFTER this constructor — see the placed bank
         self._mesh_bank_placed = False
 
     # -- coef-engine hooks ---------------------------------------------------------
@@ -415,29 +413,9 @@ class StreamSession:
         'selected' scale only to discard the result."""
         fn = getattr(self.engine, "materialize_base", None)
         if fn is not None:
-            fmt = getattr(self, "_pinned_state_fmt", None)
             if self._materialize is None:
-                # pinned sessions: results must come back in the pinned
-                # layouts or every later step relayouts the state
-                self._materialize = jax.jit(
-                    fn, **({"out_shardings": fmt} if fmt is not None
-                           else {}))
-            if fmt is not None:
-                # layout-constrained compiles must bypass the persistent
-                # cache (layout-blind key, utils/layouts.py workaround
-                # #1); the jit compiles at first CALL, so the call sits
-                # inside the disabled context (later calls are in-process
-                # cache hits — the flag flip is negligible per re-select)
-                from tpu_audio.utils.layouts import (
-                    compilation_cache_disabled, place_in_formats)
-                with compilation_cache_disabled():
-                    state = self._materialize(state, self.bank)
-                # verify/repair: the out_shardings pinning is only as
-                # trustworthy as the buffers it actually produced — a
-                # default-layout state would crash the next pinned step
-                state = place_in_formats(state, fmt, "materialized state")
-            else:
-                state = self._materialize(state, self.bank)
+                self._materialize = jax.jit(fn)
+            state = self._materialize(state, self.bank)
         else:
             no_change = jnp.zeros((self.engine.num_voices, 2), jnp.bool_)
             sel_now = jnp.asarray(self.control.select)
@@ -519,15 +497,9 @@ class StreamSession:
         self._swap_wait_logged = False
         new_bank = self._pending_bank
         self._pending_bank = None
-        # keep the swapped-in bank in the serving placement: pinned
-        # sessions silently relayout a default-layout bank on EVERY step
-        # call (the documented 10x gotcha), mesh sessions would re-place
-        # it per dispatch
-        if getattr(self, "_pinned_bank_fmt", None) is not None:
-            from tpu_audio.utils.layouts import place_in_formats
-            new_bank = place_in_formats(new_bank, self._pinned_bank_fmt,
-                                        "swapped-in bank")
-        elif self.mesh is not None and self._mesh_bank_placed:
+        # keep the swapped-in bank in the serving placement: mesh sessions
+        # would otherwise re-place it on every dispatch
+        if self.mesh is not None and self._mesh_bank_placed:
             new_bank = self._place_bank(new_bank)
         if self._is_coef and hasattr(state, "base_pure"):
             if not getattr(self.engine, "swap_snapshot", True):
@@ -548,81 +520,10 @@ class StreamSession:
                 # (engine-provided: fmajor re-points sel_spectra, the
                 # cascade its sel_head/sel_tail rhs)
                 if self._regather is None:
-                    # pinned sessions: the regathered state must come back
-                    # in the pinned layouts or every later step relayouts
-                    # the (large) sel leaves
-                    fmt = getattr(self, "_pinned_state_fmt", None)
-                    self._regather = jax.jit(
-                        self.engine.regather_selection,
-                        **({"out_shardings": fmt} if fmt is not None
-                           else {}))
-                if getattr(self, "_pinned_state_fmt", None) is not None:
-                    # layout-constrained compile at first call: bypass
-                    # the layout-blind persistent cache, then trust only
-                    # the produced buffers (utils/layouts.py #1)
-                    from tpu_audio.utils.layouts import (
-                        compilation_cache_disabled, place_in_formats)
-                    with compilation_cache_disabled():
-                        state = self._regather(
-                            state, new_bank,
-                            jnp.asarray(self.control.select))
-                    state = place_in_formats(
-                        state, self._pinned_state_fmt, "regathered state")
-                else:
-                    state = self._regather(state, new_bank,
-                                           jnp.asarray(self.control.select))
+                    self._regather = jax.jit(self.engine.regather_selection)
+                state = self._regather(state, new_bank,
+                                       jnp.asarray(self.control.select))
         self.bank = new_bank
-        return state
-
-    def _maybe_pin_layouts(self, state):
-        """Layout-sensitive engines (the cascade: engine.layout_sensitive)
-        get their step functions recompiled ONCE with compiler-chosen
-        boundary layouts, pinned consistently so state never relayouts
-        between steady, fade, and collapse steps (utils/layouts.py):
-        steady/indexed/collapse_pure under 'allk', steady/full/collapse
-        under 'selected' (whose fades run the general step and whose
-        re-selects run the materializing collapse).
-        Per-block-dispatch sessions only; chunked steps scan internally."""
-        selected = getattr(self.engine, "mac_strategy", None) == "selected"
-        if (self._layouts_pinned or self.chunk_blocks > 1
-                or self.mesh is not None
-                or not getattr(self.engine, "layout_sensitive", False)
-                or not self._is_coef
-                or (self._step_indexed is None and not selected)):
-            return state
-        self._layouts_pinned = True
-        from tpu_audio.utils.layouts import pin_engine_steps
-
-        x = jnp.zeros((self.engine.num_voices, 2, self.engine.block),
-                      jnp.float32)
-        params = self.control.snapshot_device()
-        pinned = pin_engine_steps(
-            self.engine, self.bank, params, state, x,
-            donate=bool(self._donate),
-            collapse_params=getattr(self, "_collapse_pure_params", False))
-        if pinned:
-            self._step_steady = pinned["steady"]
-            if selected:
-                self._step_full = pinned["full"]
-                self._collapse = pinned["collapse"]
-            else:
-                self._step_indexed = pinned["indexed"]
-                self._collapse_pure = pinned["collapse_pure"]
-            # place the bank in the compiler-chosen layout ONCE — passing
-            # the default-layout bank relayouts ~100 MB on every step call
-            self._pinned_state_fmt = pinned["state_format"]
-            self._pinned_bank_fmt = pinned["bank_format"]
-            from tpu_audio.utils.layouts import place_in_formats
-            self.bank = place_in_formats(self.bank, pinned["bank_format"],
-                                         "pinned bank")
-            # the state was created BEFORE pinning: a committed default-
-            # layout state strictly crashes the first pinned step (AOT
-            # executables only silently relayout UNCOMMITTED args) — place
-            # it into the compiler-chosen formats once here
-            state = place_in_formats(state, pinned["state_format"],
-                                     "pinned state")
-            if getattr(self, "on_bank_pinned", None) is not None:
-                self.on_bank_pinned(self.bank)
         return state
 
     def run(self, state, max_blocks: int | None = None,
@@ -641,7 +542,6 @@ class StreamSession:
         import collections
         import time
 
-        state = self._maybe_pin_layouts(state)
         if self.mesh is not None:
             # (re-)place the state on the mesh: fresh inits and checkpoint-
             # restored host states alike land on the serving shardings
@@ -649,8 +549,8 @@ class StreamSession:
             if not self._mesh_bank_placed:
                 self._mesh_bank_placed = True
                 self.bank = self._place_bank(self.bank)
-                if getattr(self, "on_bank_pinned", None) is not None:
-                    self.on_bank_pinned(self.bank)
+                if getattr(self, "on_bank_placed", None) is not None:
+                    self.on_bank_placed(self.bank)
         for hook in self.pre_run_hooks:
             hook()
         if self._is_coef:
@@ -665,7 +565,7 @@ class StreamSession:
                         and bool((self._pure_host
                                   & (self._a_host >= STEADY_THRESHOLD)).any())):
                     # a span-collapsed fade is in flight but this session
-                    # cannot run the indexed step (chunked mode, or pinned):
+                    # cannot run the indexed step (chunked mode):
                     # materialize the virtual snapshots once so the general
                     # fade reads a valid base tensor
                     state = self._materialize_base(state)
